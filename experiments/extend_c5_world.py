@@ -7,13 +7,13 @@ stays valid; decoy k-mers are random draws in 4^21 space (disjoint from
 the read-source genomes w.h.p.). The combined w=8 index lands in the
 deep-gather regime (~29M stored minimizers, q8 nb 2^20, 0.54 GB).
 
-Run: PYTHONPATH=src python experiments/extend_c5_world.py /tmp/c5big
+Run: PYTHONPATH=src python experiments/extend_c5_world.py WORLD_DIR
 """
 import sys
 
 import numpy as np
 
-D = sys.argv[1] if len(sys.argv) > 1 else "/tmp/c5big"
+D = sys.argv[1]
 N_SP = 12
 GL = 5_500_000
 

@@ -1,7 +1,7 @@
 // Native FASTA/FASTQ ingest + 2-bit base encoding + assignment-TSV writer
 // (SURVEY.md C1/C2/C18, §3.2).
 //
-// The TPU-native framework keeps its hot parse AND its hot report writes on
+// The framework keeps its hot parse AND its hot report writes on
 // the host CPU: a kseq-style buffered record scanner over zlib (transparent
 // gzip), encoding bases directly into the padded int8 [batch, max_len] code
 // matrix the device consumes (SEMANTICS.md §1: A/C/G/T/U case-insensitive →

@@ -1,10 +1,10 @@
-"""pangea_tpu — TPU-native metagenomic read classification engine.
+"""pangea_tpu — metagenomic read classification engine in JAX.
 
 A from-scratch rebuild of the capabilities of the reference
 ``Bioinfo-Tools/PANGEA-plus`` pipeline (reads → k-mer decomposition →
 minimizer/hash index lookup → per-read consensus/LCA scoring → reports),
-designed TPU-first: dense HBM-resident hash tables, fixed-shape batched
-XLA programs, Pallas kernels for the hot loop, and ``shard_map`` over a
+built for an accelerator (an NVIDIA H100 today): dense device-resident
+hash tables, fixed-shape batched XLA programs, and ``shard_map`` over a
 named device mesh for index sharding / data parallelism.
 
 Reference-parity semantics are frozen in ``docs/SEMANTICS.md`` (the

@@ -1,10 +1,10 @@
 """Classification engine (SURVEY.md C13/C5/L5): assembles the device kernels
 into one jittable classify step.
 
-Design (TPU-first, SURVEY.md §8.3): a batch is a fixed-shape int8 [B, L]
-code tensor (pad = 4); the whole read→k-mer→lookup→tally→score path is ONE
-XLA program — extraction fuses on the VPU, lookups are batched HBM gathers,
-scoring is dense interval math. No recompilation in steady state; variable
+Design (SURVEY.md §8.3): a batch is a fixed-shape int8 [B, L] code tensor
+(pad = 4); the whole read→k-mer→lookup→tally→score path is ONE XLA program
+— extraction is elementwise integer math, lookups are batched row gathers
+from device memory, scoring is dense interval math. No recompilation in steady state; variable
 read lengths ride the padding (SEMANTICS.md §2 makes padding semantically
 inert). Sharded execution wraps the same function in shard_map (see
 pangea_tpu.dist) with a single psum merge of the disjoint per-position hit
@@ -232,12 +232,67 @@ def _probe_tables(tables: dict, hi, lo, valid, cfg: ClassifyConfig,
                       ways=cfg.ways)
 
 
+def probes_per_read(cfg: ClassifyConfig, read_len: int,
+                    paired: bool) -> int:
+    """Probe positions per read (mates included) for reads padded to
+    read_len: one per k-mer position, or per disjoint window when w > 1."""
+    P = read_len - cfg.k + 1
+    NW = P // cfg.w if cfg.w > 1 else P
+    return NW * (2 if paired else 1)
+
+
 def _probe_rows_per_read(cfg: ClassifyConfig, bases, mate_bases,
                          packed_len: int) -> int:
     L = packed_len if packed_len else bases.shape[1]
-    P = L - cfg.k + 1
-    NW = P // cfg.w if cfg.w > 1 else P
-    return NW * (2 if mate_bases is not None else 1)
+    return probes_per_read(cfg, L, mate_bases is not None)
+
+
+def _table_geometry(fused) -> tuple[int, int]:
+    """(rows, uint32 lanes) of one table (the first sub-table if split)."""
+    f = fused[0] if isinstance(fused, tuple) else fused
+    return int(f.shape[-2]), int(f.shape[-1])
+
+
+def _fused_chunk_rows(cfg: ClassifyConfig, fused, B: int,
+                      R: int) -> int | None:
+    """Reads per chunk when classify_reads runs the whole step per read
+    chunk, or None when it runs unfused: batches within one chunk, and
+    deep tables, whose sorted-sliced gather needs the WHOLE batch's probes
+    in one sort (read-chunking would shrink the sort to chunk scope; the
+    lookup chunks internally there). PANGEA_FUSE_CHUNK=0 turns it off."""
+    from ..kernels.lookup import _DEEP_ROWS, _deep_chunk, _quot_chunk
+    nb, lanes = _table_geometry(fused)
+    Bc = max(_quot_chunk() // max(R, 1), 1)
+    deep = (cfg.n_sub == 1 and nb > _DEEP_ROWS
+            and _deep_chunk(B * R, nb, lanes * 4) is not None)
+    if deep or os.environ.get("PANGEA_FUSE_CHUNK", "1") != "1" or B <= Bc:
+        return None
+    return Bc
+
+
+def step_plan(di: "DeviceIndex", batch: int, read_len: int,
+              paired: bool) -> dict:
+    """What the classify step traces for a [batch, read_len] batch on one
+    device's table: the layout, the lookup path ("fused-chunk": the whole
+    step per read chunk, each chunk one gather; otherwise
+    kernels.lookup.lookup_path's "sorted", "chunked" or "plain") and the
+    pscore form."""
+    from ..kernels.lookup import lookup_path
+    from ..kernels.score import pscore_form
+    cfg = di.cfg
+    nb, lanes = _table_geometry(di.fused)
+    R = probes_per_read(cfg, read_len, paired)
+    rows = _fused_chunk_rows(cfg, di.fused, batch, R)
+    if rows is not None:
+        lookup = "fused-chunk"
+    else:
+        rows = batch
+        lookup = lookup_path(batch * R, nb, lanes * 4,
+                             min_chunk=32768 if cfg.layout == "std"
+                             else 8192)[0]
+    return {"layout": cfg.layout, "table_rows": nb, "row_bytes": lanes * 4,
+            "probes_per_read": R, "lookup": lookup,
+            "pscore": pscore_form(rows, R)}
 
 
 def classify_reads(tables: dict, bases, cfg: ClassifyConfig, tax_arrays,
@@ -260,7 +315,6 @@ def classify_reads(tables: dict, bases, cfg: ClassifyConfig, tax_arrays,
     independence makes them inert.
     Returns dict(taxon, best, nvalid) int32 [B]."""
     from ..kernels import score_reads_tin_jnp
-    from ..kernels.lookup import _quot_chunk
     score = score_reads_tin_jnp if cfg.layout in ("q8", "q12") \
         else score_reads_jnp
 
@@ -274,19 +328,8 @@ def classify_reads(tables: dict, bases, cfg: ClassifyConfig, tax_arrays,
 
     B = bases.shape[0]
     R = _probe_rows_per_read(cfg, bases, mate_bases, packed_len)
-    Bc = max(_quot_chunk() // max(R, 1), 1)
-    # Deep tables (beyond the fast-row cliff) use the sorted-sliced
-    # gather, whose bucket-locality win needs the WHOLE batch's probes in
-    # one sort — read-chunking would shrink the sort to chunk scope and
-    # kill it, so the step runs unfused there (lookup chunks internally).
-    from ..kernels.lookup import _DEEP_ROWS, _deep_chunk
-    f = tables["fused"]
-    nb = (f[0].shape[-2] if isinstance(f, tuple) else f.shape[-2])
-    lanes = (f[0].shape[-1] if isinstance(f, tuple) else f.shape[-1])
-    deep = (cfg.n_sub == 1 and nb > _DEEP_ROWS
-            and _deep_chunk(B * R, nb, lanes * 4) is not None)
-    if deep or os.environ.get("PANGEA_FUSE_CHUNK", "1") != "1" \
-            or B <= Bc:
+    Bc = _fused_chunk_rows(cfg, tables["fused"], B, R)
+    if Bc is None:
         return whole(bases, mate_bases)
     nch = -(-B // Bc)
     pad = nch * Bc - B
@@ -315,8 +358,8 @@ def hits_single_shard(tables: dict, bases: jnp.ndarray, cfg: ClassifyConfig,
     int8 [B, L] code matrices, or — when packed_len=L is given —
     uint32 [B, W16+W32] packed wire rows (encode.unpack_wire;
     2.5x less host→device traffic). Mates are concatenated at the k-mer
-    level (SEMANTICS.md §8) BEFORE the lookup: one big gather runs
-    measurably faster than two half-size ones on v5e. Quotient-table
+    level (SEMANTICS.md §8) BEFORE the lookup: one big gather in place of
+    two half-size ones. Quotient-table
     sharding needs NO owner masking (see _probe_tables / the quotient
     bijection argument in shard.shard_tables_quot)."""
     hi, lo, valid = _extract_probes(bases, mate_bases, cfg, packed_len)

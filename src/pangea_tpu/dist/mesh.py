@@ -1,7 +1,7 @@
 """Mesh / distribution runtime (SURVEY.md C16, C12; §3.3, §3.4).
 
-The TPU-native replacement for the reference's process/thread parallelism:
-a 2-D named mesh ``("data", "shard")`` over the pod slice —
+The device-side replacement for the reference's process/thread
+parallelism: a 2-D named mesh ``("data", "shard")`` over the devices —
 
 - **data** axis: read batches stream data-parallel (inference-style DP —
   no gradient sync; the reference's per-file/thread loop).
@@ -9,7 +9,7 @@ a 2-D named mesh ``("data", "shard")`` over the pod slice —
   (SEMANTICS.md §5.1) along this axis, the TP analog. Every device probes
   its local shard for ALL its reads; per-position hit arrays have disjoint
   support across shards, so the merge is ONE ``psum`` over the shard axis
-  riding ICI (SEMANTICS.md §11 — bit-exact for every mesh shape).
+  (SEMANTICS.md §11 — bit-exact for every mesh shape).
 - Small indexes replicate instead (shard axis of size 1): the
   "replicated when small" placement of the driver spec.
 
@@ -43,8 +43,9 @@ class MeshConfig:
 def initialize_multihost(coordinator: str | None = None,
                          num_processes: int | None = None,
                          process_id: int | None = None) -> None:
-    """Multi-process (DCN) rendezvous. No-op for single-process runs and
-    idempotent (safe to call when the launcher already initialized)."""
+    """Multi-host rendezvous, one process per host. No-op for
+    single-process runs and idempotent (safe to call when the launcher
+    already initialized)."""
     if not num_processes or num_processes <= 1:
         return
     if jax.distributed.is_initialized():   # launcher already did it
@@ -56,13 +57,50 @@ def initialize_multihost(coordinator: str | None = None,
     jax.distributed.initialize(**kwargs)
 
 
+# Device bytes one classify step holds per input base beyond the tables:
+# the probe arrays (hi, lo, valid) and the three int32 hit arrays per
+# k-mer position, with slack for the scorer and the input batch itself.
+WORKING_BYTES_PER_BASE = 32
+
+
+def batch_working_set_bytes(batch_size: int, max_read_len: int,
+                            paired: bool) -> int:
+    """Upper estimate of a batch's device working set (placement budget)."""
+    return (batch_size * max_read_len * (2 if paired else 1)
+            * WORKING_BYTES_PER_BASE)
+
+
+def memory_budget(devices, override_gb: float = 0.0,
+                  working_set: int = 0) -> tuple[int | None, str]:
+    """Per-device byte budget for index placement and where it came from.
+
+    override_gb > 0 (config ``mesh.per_device_hbm_budget_gb``) wins.
+    Otherwise the budget is the smallest ``memory_stats()["bytes_limit"]``
+    over `devices` minus the batch working set. A device that reports no
+    memory stats (the CPU backend) leaves the budget at the config value:
+    None when that is 0, i.e. placement is unbounded."""
+    if override_gb > 0:
+        return int(override_gb * (1 << 30)), "config"
+    limits = []
+    for d in devices:
+        stats = d.memory_stats()
+        if not stats or "bytes_limit" not in stats:
+            return None, "config (device reports no memory stats)"
+        limits.append(int(stats["bytes_limit"]))
+    if not limits:
+        return None, "config (no devices)"
+    return max(min(limits) - int(working_set), 0), "device bytes_limit"
+
+
 def choose_mesh(n_devices: int, index_bytes: int,
-                per_device_hbm_budget: int = 12 << 30) -> MeshConfig:
+                per_device_hbm_budget: int | None = None) -> MeshConfig:
     """Placement policy (SURVEY.md §4.3): replicate when the index fits the
-    per-chip HBM budget, else the smallest power-of-two shard axis that
-    makes each shard fit; remaining devices go data-parallel."""
+    per-device memory budget (None = unbounded), else the smallest
+    power-of-two shard axis that makes each shard fit; remaining devices
+    go data-parallel."""
     n_shard = 1
-    while n_shard < n_devices and index_bytes // n_shard > per_device_hbm_budget:
+    while (per_device_hbm_budget is not None and n_shard < n_devices
+           and index_bytes // n_shard > per_device_hbm_budget):
         n_shard *= 2
     return MeshConfig(n_data=n_devices // n_shard, n_shard=n_shard)
 
@@ -126,8 +164,8 @@ def _place_sharded_streaming(sidx, mesh: Mesh,
     """One-shard-at-a-time fuse + device placement from the sharded on-disk
     container (bit-identical arrays to the in-RAM stack_parts+fuse path).
 
-    RAM discipline (VERDICT r2 #5: the callback-based path peaked at
-    102 GB for a 25.8 GB index): shards are fused ONE at a time, shipped
+    RAM discipline (a callback-based path once peaked at 4x the index
+    size in host RAM): shards are fused ONE at a time, shipped
     straight to the devices that own them (``device_put`` per device +
     ``make_array_from_single_device_arrays`` — no stacked host array ever
     exists), the fused temporary is freed before the next shard, and
@@ -135,7 +173,8 @@ def _place_sharded_streaming(sidx, mesh: Mesh,
     multi-host pod) are never touched. Host peak beyond the mmap'd source
     is ~one fused shard. On the CPU-sim backend "device" buffers are
     themselves host RAM, so RSS additionally counts the placed table once
-    — irreducible there, absent on real TPUs where the table lands in HBM.
+    — irreducible there, absent on an accelerator where the table lands
+    in device memory.
 
     Note: this path intentionally skips the n_sub fast-regime split
     (engine.choose_n_sub) — streamed shards are assumed RefSeq-scale,
@@ -349,7 +388,7 @@ def _local_classify_broadcast(tables, bases, mate_bases,
                               packed_len: int):
     """Per-device classify step inside shard_map: local-shard lookup, ONE
     psum merging the disjoint per-position hit arrays over the shard axis
-    (ICI all-reduce; SEMANTICS.md §5.1, §11), then scoring. Local table
+    (all-reduce; SEMANTICS.md §5.1, §11), then scoring. Local table
     views: fused [1, NB, 4W|6W] (tuple of such when n_sub > 1)."""
     from ..classify.engine import _shard_view, classify_reads
     t = {"fused": _shard_view(tables["fused"], 0, cfg.n_sub),
@@ -387,9 +426,10 @@ def _local_classify_routed(tables, bases, mate_bases, cfg: ClassifyConfig,
     whenever ANY bin overflows — results are bit-identical either way
     (tested vs broadcast and golden across mesh shapes, both branches).
     Pad slots carry valid=False (inert through lookup by the validity
-    contract). Flag: mesh.routing = "alltoall" (default "broadcast");
-    this 1-chip sandbox cannot measure the comm-vs-work tradeoff, so the
-    switch exists for the first real multi-chip attachment."""
+    contract). The overflow flag is OR-reduced over the whole mesh before
+    the cond (agree_any): each branch runs different collectives, so
+    every device must take the same one or the collectives deadlock.
+    Flag: mesh.routing = "alltoall" (default "broadcast")."""
     from ..classify.engine import (_extract_probes, _probe_tables,
                                    _shard_view)
     from ..kernels import score_reads_jnp, score_reads_tin_jnp
@@ -411,15 +451,15 @@ def _local_classify_routed(tables, bases, mate_bases, cfg: ClassifyConfig,
     # Invalid positions route to shard 0 as padding (valid False).
     owner = jnp.where(valid, owner, 0)
     # Slot assignment: rank within owner via owner-major stable sort of
-    # (owner, position) — 1-D sorts are cheap on TPU (DESIGN r5 fact 1);
-    # rank = position-in-sorted-run, computed by comparing to run starts.
+    # (owner, position); rank = position-in-sorted-run, computed by
+    # comparing to run starts.
     idx = jnp.arange(N, dtype=jnp.int32)
     so, sidx = jax.lax.sort((owner, idx), num_keys=1)
     # First index of each owner's run: searchsorted on the sorted owners.
     run_start = jnp.searchsorted(so, jnp.arange(S, dtype=jnp.int32),
                                  side="left").astype(jnp.int32)
     rank_sorted = idx - run_start[so]
-    overflow = jnp.any(rank_sorted >= jnp.int32(C))
+    overflow = agree_any(jnp.any(rank_sorted >= jnp.int32(C)))
     # Scatter each (sorted) query into its [S, C] slot grid.
     pos = so * jnp.int32(C) + jnp.minimum(rank_sorted, jnp.int32(C - 1))
     dump = jnp.zeros(S * C, jnp.uint32)
@@ -459,6 +499,14 @@ def _local_classify_routed(tables, bases, mate_bases, cfg: ClassifyConfig,
 
     hits = jax.lax.cond(overflow, broadcast, routed, None)
     return score(hits, nvalid, tables["tax"], cfg.confidence_threshold)
+
+
+def agree_any(flag):
+    """OR of a per-device boolean over every mesh axis (inside shard_map):
+    every device gets the same value, so a lax.cond on it takes the same
+    branch everywhere."""
+    n = jax.lax.pmax(flag.astype(jnp.int32), (DATA_AXIS, SHARD_AXIS))
+    return n > 0
 
 
 def _replicate_over_data(out):

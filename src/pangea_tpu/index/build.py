@@ -7,12 +7,11 @@ ways + a tiny overflow stash. Pure host-side numpy — no device involvement
 (SURVEY.md §4.2). Deterministic: insertion in ascending canonical-k-mer
 order.
 
-Why single-probe (measured on TPU v5e, 2026-08-18): a classify lookup costs
-one table-row gather per PROBE, and independent gathers do not overlap —
-two-choice cuckoo (semantics v3/v4) paid 2x. One 384 B bucket row (32 ways)
-gathers at the same rate as a 96 B row, so widening the bucket is free and
-the rare overflow moves to a stash that the VPU scans in parallel for all
-queries at negligible cost.
+Why single-probe: a classify lookup costs one table-row gather per PROBE,
+and independent gathers did not overlap, so one wide bucket row replaced
+two-choice cuckoo (semantics v3/v4); the rare overflow moves to a stash
+scanned in parallel for all queries. Chosen on the earlier accelerator;
+unmeasured on the H100.
 """
 from __future__ import annotations
 
@@ -79,18 +78,15 @@ def dedupe_lca(kmers: np.ndarray, taxa: np.ndarray, taxonomy: Taxonomy):
 
 
 # Default bucket width (SEMANTICS.md §5 v5): 16 ways → a 256 B fused device
-# row (power-of-two row bytes gather ~3x faster than 320-640 B rows on v5e).
+# row; power-of-two row bytes (chosen on the earlier accelerator;
+# unmeasured on the H100).
 WAYS = 16
 STASH_MAX = 128  # overflow cap; exceeding it doubles NB and restarts
 
-# Fast-gather regime bounds. Round-3 in-situ revision (experiments/
-# mb_dense_insitu.py, mb_dense2/3.py — real classify programs + chained
-# full-consume gathers on the real chip): the cliff is ROW COUNT — tables
-# up to 2^17 bucket rows gather fast regardless of 256 B vs 512 B row
-# width ([2^17 x 512 B] = 67 MB is fast; [2^18 x 256 B] = same bytes is
-# ~5x slower), overturning round 2's "2^16 rows AND 34 MB" model from
-# mb_gather3/4. Layout policy (auto_ways / q8_plan) aims tables at this
-# regime; correctness never depends on it.
+# Fast-gather regime bounds: tables up to 2^17 bucket rows (and 68 MB)
+# gathered fast on the earlier accelerator whatever the row width; the
+# layout policy (auto_ways / pick_layout) aims tables at this regime.
+# Unmeasured on the H100 (ROADMAP S1); correctness never depends on it.
 FAST_ROWS = 1 << 17
 FAST_BYTES = 68 << 20
 
@@ -111,20 +107,15 @@ def choose_n_sub(n_kmers_per_shard: int, ways: int,
                  load_factor: float = 0.5) -> int:
     """Auto sub-table policy (classify side): ALWAYS 1.
 
-    Round 3 in-situ measurement (experiments/mb_dense_insitu.py, real
-    chip, real classify program) overturned the round-2 microbenchmark
-    this policy was built on: n_sub=2 multiplies BOTH the gather and the
-    per-lane processing cost by 2 (dense parity config: 84.1 ms split vs
-    32.2 ms for the same-capacity single-probe W=32 table), while a
-    single wider-bucket or q8 table reaches the same capacity with ONE
-    gather. The function is kept (and the split machinery with it,
-    PANGEA_NSUB) so the experiment remains reproducible."""
+    Splitting multiplies both the gather and the per-lane processing cost,
+    while a single wider-bucket or q8 table reaches the same capacity with
+    ONE gather. The split machinery (PANGEA_NSUB) is kept for experiments
+    (ROADMAP D3)."""
     return 1
 
 
-# (The round-3 fast-regime-capped q8_plan is retired: r4 measured q8
-# ≥ std beyond the regime too, so pick_layout uses the sane-nb rule
-# (q8_plan_sharded / _q8_sane_nb) for every table.)
+# pick_layout uses the sane-nb rule (q8_plan_sharded / _q8_sane_nb) for
+# every table size.
 
 
 def _q8_sane_nb(n: int, k: int, ways: int,
@@ -150,10 +141,9 @@ def q8_plan_sharded(n_kmers: int, n_shards: int, k: int, tout_max: int,
                     load_factor: float = 0.5, ways: int = 64) -> int | None:
     """Eligibility of the PER-SHARD q8 relayout (shard.shard_tables_q8):
     the expected common per-shard bucket count, or None. Unlike the
-    single-shard q8_plan there is NO fast-regime size cap — sharded
-    tables are RefSeq-scale by construction, and at equal capacity the q8
-    table has 4x fewer rows and 2x fewer bytes than std W=16 (rows are
-    what the round-3 gather cliff prices). Preconditions: rem ≤ 31 bits
+    single-shard q8_plan there is NO fast-regime size cap — at equal
+    capacity the q8 table has 4x fewer rows and 2x fewer bytes than std
+    W=16. Preconditions: rem ≤ 31 bits
     without absurd NB inflation (_q8_sane_nb) and 16-bit Euler stamps."""
     if tout_max > 0xFFFF:
         return None
@@ -164,20 +154,14 @@ def q8_plan_sharded(n_kmers: int, n_shards: int, k: int, tout_max: int,
 def q12_plan(n_kmers: int, n_shards: int, k: int, tout_max: int,
              load_factor: float = 0.5, ways: int = 0) -> int | None:
     """Eligibility of the q12 two-lane-remainder layout (kernels.lookup
-    q12 section). Preconditions, all measured in situ on the chip
-    (experiments/mb_q12.py, r4):
+    q12 section). Preconditions (chosen on the earlier accelerator;
+    unmeasured on the H100):
 
     - q8 cannot reach exactness sanely (k=31, and the k≥23 oversizing
-      cases — _q8_sane_nb None): q8 dominates at 8 B/slot wherever it
-      is achievable;
-    - the std table would NOT fit the fast-gather regime: inside it std
-      is FASTER (config-4 shape, 444k k-mers: std 2.77 ms vs q12
-      3.50 ms/step — 128 lanes of VPU compare beat 64 only when the
-      gather is the bottleneck, which it is not in-regime). Beyond the
-      regime q12 matches std speed at HALF the bytes (16.8M k-mers:
-      63.2 vs 63.5 ms, 0.54 vs 1.07 GB) — a capacity win for sharded
-      placement, and for 1M < n ≤ 2.75M the q12 table still fits the
-      fast rows std has already left;
+      cases — _q8_sane_nb None): q8 wins at 8 B/slot wherever it is
+      achievable;
+    - the std table would NOT fit the fast-gather regime (inside it std
+      was faster; beyond it q12 matched std speed at half the bytes);
     - 16-bit Euler stamps (pk lane)."""
     from ..kernels.lookup import _Q8_WAYS, _Q12_WAYS, q12_nb_for
     if tout_max > 0xFFFF:
@@ -186,9 +170,9 @@ def q12_plan(n_kmers: int, n_shards: int, k: int, tout_max: int,
     if _q8_sane_nb(per, k, _Q8_WAYS, load_factor) is not None:
         return None
     # std wins whenever ANY of its build-side widths (auto_ways tries
-    # 16 and 32) keeps the table in the fast regime — testing only W=16
-    # would hand the measured-slower q12 to 1.05M-2.1M-k-mer k=31
-    # tables that a std W=32 layout still serves in-regime.
+    # 16 and 32) keeps the table in the fast regime. Note the CLI builds
+    # W=16 by default, so a 1.05M-2.1M-k-mer k=31 index built that way
+    # gets a std table beyond the regime.
     if _fits_fast(per, 16, load_factor) or _fits_fast(per, 32,
                                                       load_factor):
         return None                      # std is measured-faster there
@@ -205,10 +189,9 @@ def pick_layout(n_kmers: int, n_shards: int, k: int, tout_max: int, *,
 
     requested: explicit layouts are gated on EXACTNESS only (an
     experiment may override the perf policy at any size — advisor r3);
-    "auto" applies the measured policies: q8 wherever exactness is
-    reachable sanely (the round-3 fast-regime cap is retired — r4
-    measured q8 ≥ std BEYOND the regime too: 61.6 vs 66.2 ms at a
-    28M-k-mer table, at 1/4 the HBM, experiments/mb_shardq8.py), then
+    "auto" applies the policies: q8 wherever exactness is reachable
+    sanely (q8 was at least as fast as std at every size on the earlier
+    accelerator, at 1/4 the memory; unmeasured on the H100), then
     q12_plan for the k=31 family, then std. Raises ValueError for an
     unknown or exactness-impossible request."""
     from ..kernels.lookup import q8_nb_for
@@ -243,11 +226,10 @@ def pick_layout(n_kmers: int, n_shards: int, k: int, tout_max: int, *,
 
 
 def auto_ways(n_kmers: int, load_factor: float = 0.5) -> int:
-    """Auto bucket width (build side): the smallest W ∈ {16, 32, 64} that
-    keeps the bucket count within the fast-gather row bound (round-3
-    model: ≤ 2^17 rows; wider rows gather at the same per-row rate, so
-    widening buckets halves rows for free until the row is ~1 KB, which
-    measured ~35% slower per step — std W=64 in mb_dense2.py). Beyond
+    """Auto bucket width (build side): the smallest W ∈ {16, 32} that
+    keeps the bucket count within the fast-gather row bound (≤ 2^17 rows;
+    wider rows gathered at the same per-row rate up to 512 B on the
+    earlier accelerator; unmeasured on the H100). Beyond
     W=32's reach, prefer the q8 layout (8 B slots) where eligible
     (engine auto policy) or mesh sharding; stay at 16 otherwise."""
     for ways in (16, 32):
@@ -329,9 +311,8 @@ def build_index(genomes, taxonomy: Taxonomy, k: int, w: int = 1,
 
     ways: bucket width (fused device row = 16·ways bytes); 0 = auto
     (auto_ways — widen to 32 when that keeps the table, or its n_sub=2
-    halves, in the fast gather regime). 16 (256 B rows) is the measured
-    optimum for small tables; 512 B rows gather at the same per-row rate
-    (experiments/mb_gather2/3)."""
+    halves, in the fast gather regime). 16 (256 B rows) was the optimum
+    for small tables on the earlier accelerator."""
     if k % 2 == 0 or not (1 <= k <= 31):
         raise ValueError("k must be odd and 1..31 (SEMANTICS.md §2)")
     uk, ut = aggregate_kmers(genomes, k, w, taxonomy, progress=progress)

@@ -2,7 +2,7 @@
 
 RefSeq-scale builds (driver configs 3/5: bacterial RefSeq, +fungal+viral —
 10^9-k-mer class) cannot concatenate every genome's k-mers in RAM. This is
-the KMC-style partitioned counter, TPU-shaped on the way out:
+the KMC-style partitioned counter, device-shaped on the way out:
 
   phase 1 (spill)   stream genomes → distinct canonical k-mers → append
                     (k-mer, taxon) records to one of S×P spill files chosen

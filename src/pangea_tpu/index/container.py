@@ -4,10 +4,10 @@ The on-device layout IS the on-disk layout: a single-probe bucketized
 power-of-two table (SEMANTICS.md §5 v5 — NB buckets × 32 ways) as three
 dense arrays (``key_hi``/``key_lo`` uint32[NB, 32], ``val`` int32[NB, 32])
 plus a tiny overflow ``stash`` (uint32 [3, n_stash] rows hi/lo/val-bits,
-n_stash ≤ 128), all of which `jax.device_put` can ship to HBM unchanged.
-A lookup gathers ONE contiguous bucket row (384 B) and compares 32 lanes on
-the VPU, then scans the (usually empty) stash in parallel for every query —
-the TPU-native replacement for a pointer/probe-chain hash table. On disk an
+n_stash ≤ 128), all of which `jax.device_put` can ship to device memory
+unchanged. A lookup gathers ONE contiguous bucket row and compares its
+lanes, then scans the (usually empty) stash in parallel for every query —
+the array replacement for a pointer/probe-chain hash table. On disk an
 index is a directory::
 
     meta.json      header: k, w, n_buckets, ways, counts, hashes

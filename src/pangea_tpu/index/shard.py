@@ -6,9 +6,8 @@ the monolithic table and padded to a common power-of-two size so the stacked
 [N, S] arrays device_put cleanly onto a mesh axis. Resharding needs no
 original genomes — the key set is recovered from the dense table itself.
 
-Sharding also speeds up the probe itself: measured on TPU v5e, random row
-gathers run ~3x faster when a shard's bucket count stays ≤ 2^17, so large
-indexes want the shard axis even before HBM capacity forces it.
+Sharding also shrinks each device's table, which sped up random row
+gathers on the earlier accelerator (unmeasured on the H100).
 
 Two sources feed this module: a monolithic :class:`Index` (tables re-laid
 in RAM — fine up to ~10^8 k-mers) and a :class:`ShardedIndex` written

@@ -2,16 +2,19 @@
 
 The extension parses + 2-bit-encodes straight into the padded int8
 [batch, max_len] matrix the device consumes, skipping the per-read Python
-object layer entirely. Falls back silently to the numpy reader
-(`pangea_tpu.io.fastx`) when the library is missing and can't be built.
+object layer entirely. The library is built from ``native/pangea_io.cpp``
+on first use, on the machine that runs it. Falls back silently to the numpy
+reader (`pangea_tpu.io.fastx`) when it can't be built.
 Encoding semantics are byte-identical to `core.semantics_np._BASE_LUT`
 (SEMANTICS.md §1); verified in tests/test_io_native.py.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
+import tempfile
 import threading
 
 import numpy as np
@@ -28,6 +31,35 @@ def _native_dir() -> str:
     return os.path.normpath(os.path.join(here, "..", "..", "..", "native"))
 
 
+def _build(d: str, so: str) -> None:
+    """Build the library from source when it is missing or older than its
+    source. Concurrent processes (test workers, multi-process runs) take an
+    exclusive file lock; the compiler writes a temporary file that is
+    renamed into place, so no process ever loads a half-written library."""
+    src = os.path.join(d, "pangea_io.cpp")
+
+    def stale() -> bool:
+        return (not os.path.exists(so)
+                or os.path.getmtime(so) < os.path.getmtime(src))
+
+    if not stale():
+        return
+    with open(os.path.join(d, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not stale():
+            return                       # another process built it
+        fd, tmp = tempfile.mkstemp(prefix=".libpangea_io.", suffix=".so",
+                                   dir=d)
+        os.close(fd)
+        try:
+            subprocess.run(["make", "-C", d, "-B", f"LIB={tmp}"],
+                           check=True, capture_output=True, timeout=300)
+            os.replace(tmp, so)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+
+
 def _load_lib():
     """Load (building if needed) the shared library; None if unavailable."""
     global _lib, _lib_tried
@@ -36,14 +68,14 @@ def _load_lib():
             return _lib
         _lib_tried = True
         d = _native_dir()
-        so = os.environ.get("PANGEA_IO_LIB",
-                            os.path.join(d, "libpangea_io.so"))
-        if not os.path.exists(so) and os.path.isdir(d):
-            try:
-                subprocess.run(["make", "-C", d], check=True,
-                               capture_output=True, timeout=120)
-            except Exception:
-                return None
+        so = os.environ.get("PANGEA_IO_LIB")
+        if so is None:
+            so = os.path.join(d, "libpangea_io.so")
+            if os.path.isfile(os.path.join(d, "pangea_io.cpp")):
+                try:
+                    _build(d, so)
+                except (OSError, subprocess.SubprocessError):
+                    return None
         if not os.path.exists(so):
             return None
         try:

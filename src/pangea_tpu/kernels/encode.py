@@ -1,14 +1,14 @@
 """On-device k-mer extraction (SURVEY.md C9), jnp path.
 
-TPU has no native 64-bit integers (jax x64 stays off), so canonical k-mers
-live as ``(hi, lo)`` uint32 pairs throughout the device path — the same
+The device path runs with jax x64 off, so canonical k-mers live as
+``(hi, lo)`` uint32 pairs throughout it — the same
 split the index table stores (SEMANTICS.md §2, §5). The rolling C loop of a
 classic classifier becomes a **log-doubling merge**: length-2^l substring
 codes are built in ceil(log2 k) rounds (m_{2l}[i] = m_l[i] << 2l | m_l[i+l]),
 then the k-mer at every position composes from the binary decomposition of
 k — O(log k) vector ops per position instead of O(k), all fused by XLA into
-one VPU pass over the batch (measured ~2.5x over the O(k) slice loop on
-v5e). The reverse complement reuses the same merge on the complemented,
+one elementwise pass over the batch (chosen on the earlier accelerator;
+unmeasured on the H100). The reverse complement reuses the same merge on the complemented,
 reversed code array (rc k-mer at i = fwd k-mer at mirrored position), and
 window validity uses the same doubling on a "bad base" flag.
 

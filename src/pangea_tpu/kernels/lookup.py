@@ -1,13 +1,12 @@
 """On-device hash-and-lookup (SURVEY.md C10), jnp path.
 
-The index's single-probe bucketized table (SEMANTICS.md §5 v5) lives in HBM
-as one fused uint32 [NB, 96] array; a lookup is exactly ONE contiguous
-384 B bucket-row gather over the whole query batch plus 32 lane-parallel
-compares on the VPU, then a parallel scan of the tiny overflow stash
-(usually empty). No data-dependent probe chains and no second round:
-measured on TPU v5e (2026-08-18), independent row gathers do NOT overlap,
-so the v3/v4 two-choice cuckoo design paid 2x; a 384 B row gathers at the
-same fixed per-row cost as a 96 B row, so the wide single bucket is free.
+The index's single-probe bucketized table (SEMANTICS.md §5 v5) lives in
+device memory as one fused uint32 [NB, lanes] array; a lookup is exactly ONE
+contiguous bucket-row gather over the whole query batch plus lane-parallel
+compares, then a parallel scan of the tiny overflow stash (usually empty).
+No data-dependent probe chains and no second round: one wide bucket row
+replaced the two-choice cuckoo design, because independent row gathers did
+not overlap (chosen on the earlier accelerator; unmeasured on the H100).
 Ownership check implements the sharded-index rule of SEMANTICS.md §5.1: a
 shard probes only k-mers whose top hash bits name it, everything else
 reports taxon 0 and is merged by a later psum.
@@ -45,16 +44,15 @@ def hash32_jnp(hi, lo):
 def fuse_table(key_hi, key_lo, val, tin, tout):
     """[NB, W] ×3 table arrays + taxonomy Euler arrays ([T+1]) → one uint32
     fused row per bucket, carrying the hit taxon's Euler interval so the
-    scorer needs NO per-position taxonomy gather (measured ~8 ms per
-    million positions even on a tiny taxonomy — gathers cost per element,
-    however small the source). Derived at device-load time; not part of
+    scorer needs NO per-position taxonomy gather (gathers cost per
+    element, however small the source). Derived at device-load time; not part of
     the on-disk format.
 
     Two layouts (lookup_jnp infers from the row width):
     - packed  [NB, 4W] = [hi×W | lo×W | val×W | (tin<<16|tout)×W] when the
       taxonomy fits 16-bit Euler stamps (tout ≤ 0xFFFF). W=16 → a 256 B
-      row; power-of-two row bytes gather ~3x faster than 320-640 B rows
-      on v5e.
+      row. Rows are power-of-two bytes (chosen on the earlier accelerator;
+      unmeasured on the H100).
     - wide    [NB, 6W] = [hi | lo | val | tin | tout | pad] otherwise
       (row padded to a power-of-two byte size)."""
     import numpy as np
@@ -80,7 +78,7 @@ def fuse_stash(stash, tin, tout):
     """uint32 [3, S] (hi, lo, val-bits) → uint32 [5, S] with tin/tout rows
     appended (empty-stash padding keeps val 0 → tin[0]/tout[0], never
     selected because its key_hi is the EMPTY sentinel). The stash is tiny
-    and scanned on the VPU, so it keeps the simple unpacked layout."""
+    and scanned in parallel, so it keeps the simple unpacked layout."""
     import numpy as np
     stash = np.asarray(stash, dtype=np.uint32)
     sval = stash[2].view(np.int32)
@@ -146,24 +144,23 @@ def lookup_jnp(hi, lo, valid, fused, stash, *, n_shards: int = 1,
                             axis=-1)
         return taxon, t_in, t_out
 
-    chunk = _quot_chunk()
-    dchunk = _deep_chunk(b.shape[0], nb, fused.shape[1] * 4,
-                         min_chunk=32768) if nb > _DEEP_ROWS else None
-    if dchunk is not None and b.shape[0] > dchunk:
+    path, chunk = lookup_path(b.shape[0], nb, fused.shape[1] * 4,
+                              min_chunk=32768)
+    if path == "sorted":
         # Deep table: sorted-sliced gather (see _sorted_std) — the
         # big-taxonomy (wide-row) RefSeq case q8/q12 cannot serve.
         taxon, t_in, t_out = _sorted_std(fused, b, hi, lo, mine, W,
-                                         packed, dchunk)
-    elif b.shape[0] > chunk:
+                                         packed, chunk)
+    elif path == "chunked":
         # Chunked gather (see _Q8_CHUNK): bounds the materialized
-        # [N, 4W|6W] rows intermediate — same r4 xprof finding as q8.
+        # [N, 4W|6W] rows intermediate.
         taxon, t_in, t_out = _map_chunks(_std_lanes, chunk, b, hi, lo,
                                          mine)
     else:
         taxon, t_in, t_out = _std_lanes(b, hi, lo, mine)
 
     S = stash.shape[1]
-    if S:                                       # parallel stash scan (VPU)
+    if S:                                       # parallel stash scan
         shit = (mine[:, None] & (hi[:, None] == stash[0][None, :])
                 & (lo[:, None] == stash[1][None, :]))
         sv = jax.lax.bitcast_convert_type(stash[2:], jnp.int32)
@@ -175,13 +172,11 @@ def lookup_jnp(hi, lo, valid, fused, stash, *, n_shards: int = 1,
 
 
 # ---------------------------------------------------------------- q8 layout
-# Quotiented-key single-probe layout (VERDICT r2 #6a, DESIGN.md round 3):
-# a slot stores 8 bytes — a 32-bit quotient REMAINDER + the packed
-# (tin<<16|tout) Euler payload — instead of the 16-byte (hi, lo, val, pk)
-# lane set. Halving slot bytes doubles the k-mers a fast-gather-regime
-# table (≤2^16 rows AND ≤~34 MB, DESIGN.md fact 1) can hold: the dense
-# (w=1) k=21 parity index becomes ONE [2^16, 512 B] single-probe table
-# instead of two probed sub-tables or one slow 2^18-row table.
+# Quotiented-key single-probe layout (DESIGN.md): a slot stores 8 bytes —
+# a 32-bit quotient REMAINDER + the packed (tin<<16|tout) Euler payload —
+# instead of the 16-byte (hi, lo, val, pk) lane set. Halving slot bytes
+# halves the rows and bytes a table needs: the dense (w=1) k=21 parity
+# index becomes ONE [2^16, 512 B] single-probe table.
 #
 # Exactness: the canonical k-mer K (2k bits) is mapped by the BIJECTIVE
 # mix h = (K * A) mod 2^(2k) (A odd); bucket = top log2(NB) bits of h,
@@ -193,23 +188,35 @@ def lookup_jnp(hi, lo, valid, fused, stash, *, n_shards: int = 1,
 # (kernels.score.score_reads_tin_jnp), never via [B, P] gathers.
 _Q8_A = _np.uint64(0x9E3779B1)        # odd (2^32/golden-ratio, Knuth)
 _Q8_WAYS = 64                         # 8 B x 64 = 512 B fused rows
-# Chunked-gather policy (r4 xprof finding, docs/artifacts/trace_r04 +
-# experiments/mb_vmem.py): the gather is a fusion ROOT in XLA — its
-# [N, 2W] rows output is materialized to HBM (268 MB/step at headline
-# shape, 942 us) and re-read by the lane-compare fusion (854 us).
-# Running gather+compare+sum per query chunk under lax.map bounds the
-# intermediate to [chunk, 2W] and measured 2.62 -> 2.17 ms/step
-# (6.2M -> 7.5M reads/s) at the headline shape. Applied when the flat
-# query count exceeds the chunk size; exactness is per-element identical.
-# Chunk-size sweep (experiments/mb_chunksweep.py, headline shape):
-# 16384/32768 ~2.20 ms, 65536-262144 2.3-2.6 ms, unchunked 2.5-2.7 ms
-# — flat once the intermediate is small; 32768 chosen (fewer map trips).
+# Chunked-gather policy: when the gather is a fusion root, XLA writes its
+# [N, 2W] rows output to device memory and the lane-compare fusion reads
+# it back. Running gather+compare+sum per query chunk under lax.map bounds
+# the intermediate to [chunk, 2W]. Applied when the flat query count
+# exceeds the chunk size; exactness is per-element identical. The policy
+# and the chunk size were chosen on the earlier accelerator; unmeasured on
+# the H100 (ROADMAP S1).
 _Q8_CHUNK = 32768
 
 
 def _quot_chunk() -> int:
     import os
     return max(int(os.environ.get("PANGEA_Q8_CHUNK", _Q8_CHUNK)), 1)
+
+
+def lookup_path(n: int, nb: int, row_bytes: int,
+                min_chunk: int = 8192) -> tuple[str, int]:
+    """The gather every lookup runs for n flat probes on an nb-row table:
+    ("sorted", probes per sorted chunk) for deep tables (see
+    _sorted_apply), ("chunked", chunk) beyond the chunk size (see
+    _Q8_CHUNK), else ("plain", n). min_chunk: see _deep_chunk."""
+    if nb > _DEEP_ROWS:
+        dchunk = _deep_chunk(n, nb, row_bytes, min_chunk=min_chunk)
+        if dchunk is not None and n > dchunk:
+            return "sorted", dchunk
+    chunk = _quot_chunk()
+    if n > chunk:
+        return "chunked", chunk
+    return "plain", n
 
 
 def _map_chunks(lane_fn, chunk, *arrays):
@@ -253,18 +260,16 @@ def _chunked_pk(fused, b, rem_lanes, valid, W, chunk):
 
 
 # ------------------------------------------------- deep-table sorted gather
-# Beyond the fast-row cliff (~2^17 rows — r3 fact 1) gathers are priced
-# per random access (~8.5 ns/row in situ, r5 mb_deep). Grouping probes by
-# bucket (1-D lax.sort IS cheap on v5e: ~2 ns/row for 4 operands — r5
-# mb_deep2; the r4 "sorts are slow" finding was per-ROW batched sorts)
-# and gathering each sorted chunk from a dynamic 2^15-row table slice
-# (which gets the fast-regime treatment a full-size operand does not)
-# runs the same lookup at ~5.6 ns/row at production probe counts — 1.5x
-# (docs/artifacts/mb_deep3_r05.json). Exactness: the per-chunk bucket
+# Beyond _DEEP_ROWS table rows, probes are grouped by bucket (one 1-D
+# lax.sort) and each sorted chunk gathers from a dynamic 2^15-row table
+# slice instead of the whole table. The rule and its constants were chosen
+# on the earlier accelerator, where a small gather operand was much faster
+# than a big one; unmeasured on the H100 (ROADMAP S2). Exactness: the
+# per-chunk bucket
 # span is data-dependent, so a guard computes every chunk's span and a
 # lax.cond falls back to the plain chunked gather (on the sorted probes —
 # order is irrelevant to it) whenever any span exceeds the slice; results
-# return to input order by a second sort on the carried index. Validity
+# return to input order by a scatter to the carried index. Validity
 # folds into the remainder lanes (invalid probes get the empty-lane
 # sentinel, which can only "match" empty lanes whose payload is 0), so
 # the sorted path needs no separate valid operand and stays bit-exact.
@@ -278,21 +283,16 @@ def _deep_chunk(n: int, nb: int, row_bytes: int = 512,
     ≤ SLICE/2 so the exact guard virtually never trips. None = too few
     probes per row for sorting to pay (fall back to the plain path).
     min_chunk: the std layout passes 32768 — its sorts carry 2 probe
-    operands in and 3 outputs back (vs q8's 1+1), so it needs twice the
-    probes-per-row before sorting pays (the 28M-shard std arm measured a
-    LOSS at c=8448: 68.9 ms sorted vs ~52-66 plain)."""
+    operands in and 3 outputs back (vs q8's 1+1), so it needs more
+    probes per row before sorting pays."""
     import os
     if os.environ.get("PANGEA_DEEP_SORT", "1") != "1":
         return None
     c = n * (_DEEP_SLICE // 2) // max(nb, 1)
     if c < min_chunk or nb * row_bytes > (1 << 31):
-        # Table-size cap measured, not derived (mb_deep4_r05.json): the
-        # sorted path wins up to 2^22 x 512 B rows = 2 GB (6.7 vs 8.5
-        # ns/row) but is a wash-to-loss on an 8.6 GB table across probe
-        # counts 8.4M/16.8M/33.5M (8.7-9.1 vs 8.6) — the per-chunk tile
-        # copies total ~2x table bytes regardless of N, and slices of a
-        # GB-scale operand stop gathering at the fast rate. Tables that
-        # big want the shard axis anyway (HBM pressure).
+        # Tables above 2 GB skip the sorted path: the per-chunk tile
+        # copies total ~2x table bytes regardless of N (cap chosen on the
+        # earlier accelerator; unmeasured on the H100).
         return None
     return 1 << min(c.bit_length() - 1, 19)
 
@@ -301,7 +301,7 @@ def _sorted_apply(fused, b, probes, lanes_fn, chunk):
     """Shared deep-regime skeleton: sort (bucket, *probes, idx), run
     lanes_fn(rows, probe_chunks) -> tuple of [chunk] outputs per sliced
     chunk (or against the plain full-table gather under the span-guard
-    fallback), and un-sort every output by a second sort on the carried
+    fallback), and un-sort every output by a scatter to the carried
     index. Pad entries carry the batch-max bucket (tight tail span) and
     zero probes — pad OUTPUTS are sliced off after the restore, so their
     content is inert by construction."""
@@ -331,9 +331,9 @@ def _sorted_apply(fused, b, probes, lanes_fn, chunk):
             start = jnp.clip(first, 0, jnp.int32(nb - sl))
             tile = jax.lax.dynamic_slice(
                 fused, (start, jnp.int32(0)), (sl, lanes))
-            # The barrier pins the slice as a materialized (fast-regime)
-            # gather operand — unfused, XLA folds slice+gather back into
-            # the slow full-table gather.
+            # The barrier pins the slice as a materialized gather
+            # operand — unfused, XLA folds slice+gather back into the
+            # full-table gather.
             tile = jax.lax.optimization_barrier(tile)
             return lanes_fn(tile[bc - start], args[2:])
         return jax.lax.map(body, (firsts, sb2) + pchunks)
@@ -346,9 +346,14 @@ def _sorted_apply(fused, b, probes, lanes_fn, chunk):
     outs = jax.lax.cond(ok, sliced, plain, None)
     if not isinstance(outs, tuple):
         outs = (outs,)
-    rst = jax.lax.sort((sidx,) + tuple(o.reshape(-1) for o in outs),
-                       num_keys=1)
-    return tuple(o[:N] for o in rst[1:])
+    # Restore input order by scattering each output to its carried index
+    # (sidx is a permutation of [0, nch*chunk)). A second sort keyed on
+    # sidx computes the same thing, but XLA's GPU permutation-sort
+    # rewrite turns it into a scatter that fails HLO verification for
+    # uint32 operands.
+    return tuple(jnp.zeros(nch * chunk, o.dtype)
+                 .at[sidx].set(o.reshape(-1), unique_indices=True)[:N]
+                 for o in outs)
 
 
 def _sorted_pk(fused, b, rem_lanes, valid, W, chunk):
@@ -531,7 +536,7 @@ def _bucket_rank(b, n: int, ways: int):
 
 
 # --------------------------------------------------------------- q12 layout
-# Two-lane-remainder quotient layout (VERDICT r3 #3): covers k where the
+# Two-lane-remainder quotient layout: covers k where the
 # q8 single-lane remainder cannot fit 31 bits (k=31 needs r = 62 − log2 NB
 # ≤ 31 ⇒ NB ≥ 2^31 — hopeless). A slot stores 12 bytes: rem_lo (low 32
 # rem bits), rem_hi (the rest, ≤ 30 bits), and the packed Euler payload —
@@ -540,9 +545,8 @@ def _bucket_rank(b, n: int, ways: int):
 # = a 512 B power-of-two row (12·W can never be a power of two for
 # uniform W, but slots-per-row need not be a power of two — only row
 # BYTES must, for the gather). vs std W=16 (256 B rows, 16 slots):
-# 2.6x fewer rows at equal capacity, 1.3x fewer bytes — rows are what
-# the round-3 gather cliff prices, so the k=31 config-4 index leaves the
-# slow std layout. Empty-lane sentinel lives in rem_hi (real rem_hi
+# 2.6x fewer rows at equal capacity, 1.3x fewer bytes. Empty-lane
+# sentinel lives in rem_hi (real rem_hi
 # ≤ 2^30 − 1 < 0xFFFFFFFF).
 _Q12_WAYS = 42
 
@@ -661,13 +665,11 @@ def lookup_q12_jnp(hi, lo, valid, fused, stash, *, k: int,
         rem_lo = h_lo & jnp.uint32((1 << r) - 1)
         rem_hi = jnp.zeros_like(h_lo)
 
-    chunk = _quot_chunk()
-    dchunk = _deep_chunk(b.shape[0], nb, fused.shape[1] * 4) \
-        if nb > _DEEP_ROWS else None
-    if dchunk is not None and b.shape[0] > dchunk:
+    path, chunk = lookup_path(b.shape[0], nb, fused.shape[1] * 4)
+    if path == "sorted":
         # Deep table: sorted-sliced gather (see _sorted_pk).
-        pk = _sorted_pk(fused, b, (rem_lo, rem_hi), valid, W, dchunk)
-    elif b.shape[0] > chunk:
+        pk = _sorted_pk(fused, b, (rem_lo, rem_hi), valid, W, chunk)
+    elif path == "chunked":
         # Chunked gather+compare+sum (see _Q8_CHUNK) — bit-identical.
         pk = _chunked_pk(fused, b, (rem_lo, rem_hi), valid, W, chunk)
     else:
@@ -693,7 +695,7 @@ def lookup_q12_jnp(hi, lo, valid, fused, stash, *, k: int,
 
 def _umulh32_jnp(a, b_const: int):
     """High 32 bits of a (uint32 array) x b (uint32 constant) — 16-bit
-    schoolbook; TPUs have no widening 32-bit multiply in jnp."""
+    schoolbook; jnp has no widening 32-bit multiply."""
     M = jnp.uint32(0xFFFF)
     a0, a1 = a & M, a >> jnp.uint32(16)
     b0 = jnp.uint32(b_const & 0xFFFF)
@@ -745,14 +747,12 @@ def lookup_q8_jnp(hi, lo, valid, fused, stash, *, k: int,
         b = ((h_hi << jnp.uint32(32 - r)) | (h_lo >> jnp.uint32(r))) \
             .astype(jnp.int32)
 
-    chunk = _quot_chunk()
-    dchunk = _deep_chunk(b.shape[0], nb, fused.shape[1] * 4) \
-        if nb > _DEEP_ROWS else None
-    if dchunk is not None and b.shape[0] > dchunk:
-        # Deep table: sorted-sliced gather (see _sorted_pk) — 1.5x the
-        # plain chunked gather beyond the fast-row cliff, bit-identical.
-        pk = _sorted_pk(fused, b, (rem,), valid, W, dchunk)
-    elif b.shape[0] > chunk:
+    path, chunk = lookup_path(b.shape[0], nb, fused.shape[1] * 4)
+    if path == "sorted":
+        # Deep table: sorted-sliced gather (see _sorted_pk),
+        # bit-identical to the plain chunked gather.
+        pk = _sorted_pk(fused, b, (rem,), valid, W, chunk)
+    elif path == "chunked":
         # Chunked gather+compare+sum (see _Q8_CHUNK) — bit-identical.
         pk = _chunked_pk(fused, b, (rem,), valid, W, chunk)
     else:
@@ -768,8 +768,7 @@ def lookup_q8_jnp(hi, lo, valid, fused, stash, *, k: int,
     # half-open with tout > tin ≥ 0 — note the ROOT has tin == 0, so it
     # is tout, not tin, that guarantees pk > 0). Computing hit from pk
     # instead of any(hitlane) drops a [N, W] pred materialization +
-    # reduce from the program (xprof r4: 195 us/step + its share of the
-    # 854 us lane fusion at the headline shape).
+    # reduce from the program.
     hit = (pk != jnp.uint32(0)).astype(jnp.int32)
 
     S = stash.shape[1]

@@ -1,10 +1,9 @@
 """On-device disjoint-window minimizer selection (SEMANTICS.md §3 v4).
 
-The TPU-native sampling move: the classify bottleneck is table-row gather
-COUNT (fixed cost per row, insensitive to masking or locality — measured on
-TPU v5e), so w > 1 shrinks the probe tensor itself from [B, P] to
-[B, ceil(P/w)] via a pure-VPU tournament — trading cheap elementwise flops
-for expensive HBM gathers. Index-side (overlapping-window, build-time)
+The sampling move: the classify step was bound by the COUNT of table-row
+gathers (chosen on the earlier accelerator; unmeasured on the H100), so
+w > 1 shrinks the probe tensor itself from [B, P] to [B, ceil(P/w)] via an
+elementwise tournament — trading cheap elementwise ops for gathers. Index-side (overlapping-window, build-time)
 selection stays on the host in core.semantics_np.minimizer_mask.
 
 Bit-exactness contract: identical to `core.disjoint_query_minimizers`

@@ -1,7 +1,7 @@
 """On-device consensus/LCA scorer (SURVEY.md C13/C11), jnp path.
 
-Implements SEMANTICS.md §7 with TPU-shaped math: the taxonomy is dense
-int32 arrays (Euler tin/tout), so
+Implements SEMANTICS.md §7 with gather-light array math: the taxonomy is
+dense int32 arrays (Euler tin/tout), so
 
 - "hits vote for their subtree" is counting, for each hit position i, how
   many hit intervals contain tin_i. Euler intervals are laminar, so
@@ -12,19 +12,19 @@ int32 arrays (Euler tin/tout), so
   two sorts + two sorted-rank lookups — O(P log P) — instead of the
   [B, P, P] containment matrix (O(P^2)), which at the dense (w=1) parity
   configuration (P≈260 paired) built a 1e9-element boolean intermediate
-  per 16k batch and ran 20x slower than the w=8 headline. The quadratic
-  form is kept for tiny P where it wins (pure VPU compares, no sort);
+  per 16k batch. The quadratic form is kept where it wins (pure
+  elementwise compares, no sort);
 - the tally + argmax over the tree collapses to a row max over hit
   positions (the maximizer of the path score is always attained at a hit
   taxon);
 - per-position Euler intervals (t_in, t_out) arrive WITH the hits from the
   lookup kernel (the fused table row carries them — see lookup.fuse_table),
-  because measured on TPU v5e a [B, P] gather from even a tiny taxonomy
-  array costs ~8 ms per million elements — far more than the compares;
+  because a [B, P] gather from even a tiny taxonomy array cost more than
+  the compares (chosen on the earlier accelerator; unmeasured on the H100);
 - the LCA-fold over tied winners uses the Euler-tour property
   LCA(set) = LCA(argmin tin, argmax tin); the pairwise LCA is computed by
   a direct deepest-common-ancestor scan over the whole taxonomy ([B, T+1]
-  interval tests on the VPU — gather-free) when the taxonomy is small,
+  interval tests — gather-free) when the taxonomy is small,
   falling back to binary lifting for big taxonomies.
 
 Bit-exactness contract: identical to `pangea_tpu.golden._score_hits`.
@@ -44,17 +44,15 @@ import numpy as _np
 _I32_MAX = _np.int32(2**31 - 1)
 # Direct [B, T+1] LCA scan below this taxonomy size; binary lifting above.
 _DIRECT_LCA_MAX_TAXA = 4096
-# Auto pscore rule (measured on TPU v5e 2026-08-20, experiments/mb_score.py
-# — see docs/DESIGN.md): the quadratic [B, P, P] form fuses on the VPU at
-# ~500 G-compares/s (2.2 ms at B=16384, P=260) while the sort-rank form
-# pays lax.sort's price (156 ms at the same shape — TPU sorts are slow), so
-# quadratic wins everywhere its B·P² intermediate stays addressable.
-# When B·P² exceeds the bound, the batch is CHUNKED into ≤⌊2³¹/P²⌋-row
-# slices and the quadratic runs per slice under lax.map — bit-identical,
-# bounded intermediate, still ~P²/(P log P)·(500G/sort-rate) faster than
-# the sort form (VERDICT r2 #3: the silent 70x cliff at B·P² = 2³¹ is
-# gone). Sort-rank remains only for long-read buckets where P itself is
-# huge (> _RANKED_MIN_P) and the quadratic's per-row P² work explodes.
+# Auto pscore rule: the quadratic [B, P, P] form (one fused elementwise
+# pass) over the sort-rank form (two batched sorts) wherever its B·P²
+# intermediate stays addressable. Chosen on the earlier accelerator, whose
+# sorts were slow; unmeasured on the H100 (ROADMAP S5). When B·P² exceeds
+# the bound, the batch is CHUNKED into ≤⌊2³¹/P²⌋-row slices and the
+# quadratic runs per slice under lax.map — bit-identical, bounded
+# intermediate. Sort-rank remains only for long-read buckets where P
+# itself is huge (> _RANKED_MIN_P) and the quadratic's per-row P² work
+# explodes.
 _QUAD_PSCORE_MAX_ELEMS = 2**31
 _RANKED_MIN_P = 2048
 
@@ -102,25 +100,25 @@ def _pscore_quad_chunked(t_in, t_out, hit,
     return out.reshape(nch * bc, P)[:B]
 
 
-def _pscore(t_in, t_out, hit):
+def pscore_form(B: int, P: int) -> str:
+    """The pscore implementation the scorer traces for a [B, P] batch:
+    "quadratic", "quadratic-chunked" or "sort-rank" (PANGEA_PSCORE=quad
+    or =ranked forces one)."""
     impl = os.environ.get("PANGEA_PSCORE", "auto")
-    B, P = t_in.shape
     if impl == "quad" or (impl == "auto"
                           and B * P * P <= _QUAD_PSCORE_MAX_ELEMS):
-        return _pscore_quadratic(t_in, t_out, hit)
+        return "quadratic"
     if impl == "auto" and P <= _RANKED_MIN_P:
-        import logging
-        logging.getLogger(__name__).info(
-            "pscore: B*P^2 = %d*%d^2 > 2^31 — chunked quadratic "
-            "(%d-row slices)", B, P, max(2**31 // (P * P), 1))
+        return "quadratic-chunked"
+    return "sort-rank"
+
+
+def _pscore(t_in, t_out, hit):
+    form = pscore_form(*t_in.shape)
+    if form == "quadratic":
+        return _pscore_quadratic(t_in, t_out, hit)
+    if form == "quadratic-chunked":
         return _pscore_quad_chunked(t_in, t_out, hit)
-    if impl == "auto":
-        import logging
-        logging.getLogger(__name__).warning(
-            "pscore: P = %d > %d (long-read bucket) — O(P log P) "
-            "sort-rank form (lax.sort is ~70x slower per element than "
-            "the fused quadratic; expected only for long-read buckets)",
-            P, _RANKED_MIN_P)
     return _pscore_ranked(t_in, t_out, hit)
 
 
@@ -198,7 +196,7 @@ def _score_impl(taxon, hit, t_in, t_out, nvalid, tax_arrays,
         # are zero iff the read has no winner), so has-stand-ins suffice
         # there; the lifting path recovers real node ids from tins via
         # two [B]-sized tin2node gathers ([B, P] gathers are the
-        # expensive kind — DESIGN.md fact 3; [B] ones are noise).
+        # expensive kind; [B] ones are noise).
         has = (best > 0).astype(jnp.int32)
         u = v = has
     if tax_arrays["tin"].shape[0] <= _DIRECT_LCA_MAX_TAXA:

@@ -66,3 +66,27 @@ def test_deep_chunk_policy():
     # heavier sorts demand min_chunk=32768 (28M-shard std arm loss)
     assert LK._deep_chunk(1 << 24, 1 << 23, 256, min_chunk=32768) == 32768
     assert LK._deep_chunk(1 << 23, 1 << 23, 256, min_chunk=32768) is None
+
+
+@pytest.mark.parametrize("layout", ["q8", "q12", "std"])
+@pytest.mark.parametrize("deep_on", [True, False])
+def test_step_plan_names_the_traced_path(world, layout, deep_on,
+                                         monkeypatch):
+    """run_summary's step plan reports the gather the lookup traces."""
+    from pangea_tpu.classify.engine import step_plan
+    _, _, idx, _ = world
+    monkeypatch.setenv("PANGEA_DEEP_SORT", "1" if deep_on else "0")
+    monkeypatch.setattr(LK, "_DEEP_ROWS", 1 << 9)
+    monkeypatch.setattr(
+        LK, "_deep_chunk",
+        lambda n, nb, rb=512, min_chunk=8192:
+        2048 if deep_on and n > 2048 else None)
+    di = DeviceIndex.from_index(idx, confidence_threshold=0.05,
+                                layout=layout)
+    plan = step_plan(di, 192, 120, paired=False)
+    assert plan["layout"] == layout
+    assert plan["probes_per_read"] == 100
+    assert plan["lookup"] == ("sorted" if deep_on else "plain")
+    assert plan["pscore"] == "quadratic"
+    if not deep_on:   # 4096 reads x 100 probes > one 32768-probe chunk
+        assert step_plan(di, 4096, 120, False)["lookup"] == "fused-chunk"

@@ -1,7 +1,7 @@
 """Golden parity of the device (jnp) path — the spine of the test strategy
 (SURVEY.md §5.1): every device component bit-exact vs the numpy golden
 model. Runs on the CPU backend (conftest.py); the same code path runs
-unchanged on TPU."""
+unchanged on the GPU."""
 import jax
 import jax.numpy as jnp
 import numpy as np

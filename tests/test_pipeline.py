@@ -121,11 +121,11 @@ def test_fast_path_matches_python_path(testdata, tmp_path, monkeypatch):
     assert cli.main(args + ["--out", fast]) == 0
     summary = json.load(open(f"{fast}/run_summary.json"))
     assert summary.get("fast_path")
-    # Observability schema (VERDICT r3 #8/#9): weather-immune device
-    # gauge + cumulative compile bill must be present in every summary.
+    # Observability schema: the ready-gap device gauge + cumulative
+    # compile bill must be present in every summary.
     assert summary["device_reads_per_sec"] > 0
     assert summary["compile_sec"] >= 0
-    # Declared warmup (VERDICT r4 #8): the steady shape compiles at
+    # Declared warmup: the steady shape compiles at
     # warmup; a fixed-shape run must see NO late (mid-stream) compiles.
     assert summary["warmup_compile_sec"] >= 0
     assert summary["late_compiled_shapes"] == 0
